@@ -40,6 +40,7 @@ import math
 
 import numpy as np
 
+from .config import require_x64
 from .robot import RobotModel
 
 _SLOP = 1e-12
@@ -235,6 +236,7 @@ def certified_link_m_min(robot: RobotModel, max_boxes: int = 4000,
     `target_gap` (absolute) of the incumbent upper bound or the box budget is
     exhausted; either way the returned value is SOUND (it is the min over
     all leaf bounds)."""
+    require_x64("certified_link_m_min")
     F = robot.num_factors
     lo = np.where(np.asarray(robot.position_limits_lb) < -100, -np.pi,
                   np.maximum(robot.position_limits_lb, -np.pi)).astype(float)
@@ -325,6 +327,7 @@ def certified_link_m_max(robot: RobotModel, max_boxes: int = 2000,
     bound, incumbent = best sampled lambda_max, prune boxes whose bound is
     below it).  Sound on any budget: the return is the max over all leaf
     bounds."""
+    require_x64("certified_link_m_max")
     F = robot.num_factors
     lo = np.where(np.asarray(robot.position_limits_lb) < -100, -np.pi,
                   np.maximum(robot.position_limits_lb, -np.pi)).astype(float)

@@ -116,10 +116,10 @@ class ArmourConfig:
     cost_scale: float = 10.0
 
     # --- solver (replaces Ipopt; armour_main.cu:246-253) ---
-    # Iteration budget tuned on the contested bench + 20-world closed-loop
-    # quality gate (round 4): (outer 4 x inner 3, 4 seeds culled to 2 after
-    # 1 outer) matches the round-3 8x6x4 solver's goal rate while solving
-    # 2.9x faster.  The reference converges in tens of Ipopt iterations on
+    # Iteration budget chosen on the contested bench + 20-world closed-loop
+    # quality gate: (outer 4 x inner 3, 4 seeds culled to 2 after 1 outer)
+    # matched the goal rate of an 8x6x4 solver.  Its cost on the GPU is not
+    # measured yet.  The reference converges in tens of Ipopt iterations on
     # the same problems (NLPclass.cu:272-397).
     solver_outer_iters: int = 4        # augmented-Lagrangian outer updates
     solver_inner_iters: int = 3        # projected-Newton inner steps
@@ -134,13 +134,13 @@ class ArmourConfig:
     solver_alphas: Tuple[float, ...] = (1.0, 0.25, 0.03125)
     # screened collision rows in the solver hot loop.  Soundness never
     # depended on K (the finalize check evaluates ALL rows, collision.py
-    # ScreenedCollision) — but CLOSED-LOOP QUALITY does: 1024 rows measured
-    # 2x faster on the contested bench yet cost 9 goals on the 100-world
-    # suite (77 -> 68), and a strong-profile rescue at 4096 could NOT
-    # recover them (round-5 re-run: 68 goals, rescue recovered 61 plans but
-    # 0 net goals) — the fast profile's accepted-but-poorer plans steer
+    # ScreenedCollision) — but CLOSED-LOOP QUALITY does: 1024 rows cost 9
+    # goals on the 100-world suite (77 -> 68), and a strong-profile rescue
+    # at 4096 could NOT recover them (68 goals; rescue recovered 61 plans
+    # but 0 net goals) — the fast profile's accepted-but-poorer plans steer
     # worlds into wedged states over the 500-iteration horizon.  4096 is
-    # the acceptance profile; quality outranks the 2x.
+    # the acceptance profile; its cost against 1024 on the GPU is not
+    # measured yet.
     screen_k: int = 4096
     # per-obstacle row quota inside the screen (collision.screen_collision):
     # reserve this many best rows for EVERY obstacle before the global
@@ -217,6 +217,7 @@ def mass_eigenvalue_bracket(robot, n_samples: int = 512, seed: int = 0,
 
     from .rnea_numeric import mass_matrix
 
+    require_x64("mass_eigenvalue_bracket")
     rng = np.random.default_rng(seed)
     lo = np.maximum(np.asarray(robot.position_limits_lb), -math.pi)
     hi = np.minimum(np.asarray(robot.position_limits_ub), math.pi)
@@ -349,6 +350,18 @@ def _ub_cache() -> dict:
 
 
 _UB_CACHE = None
+
+
+def require_x64(what: str) -> None:
+    """Refuse to run a bound that is only sound in float64 without x64:
+    jnp.float64 silently becomes float32 when x64 is off (as it is on the
+    GPU path), which would weaken the result without telling anyone."""
+    import jax
+
+    if not jax.config.jax_enable_x64:
+        raise RuntimeError(
+            f"{what} needs float64: enable jax_enable_x64 (on the CPU "
+            "backend, as tests/conftest.py does)")
 
 
 DEFAULT_CONFIG = ArmourConfig()

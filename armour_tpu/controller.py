@@ -1,6 +1,6 @@
 """Robust passivity/CBF low-level controller.
 
-TPU-native twin of uarmtd_robust_CBF_LLC.m:58-189 and the mex
+JAX twin of uarmtd_robust_CBF_LLC.m:58-189 and the mex
 RobustController (kinova_robust_controllers_mex/src/robust_controller.cpp:
 129-167):
 

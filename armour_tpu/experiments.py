@@ -143,8 +143,8 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             resume: bool = False,
                             second_pass: Optional[dict] = None
                             ) -> List[SuiteResult]:
-    """All worlds advanced in lockstep on one chip (batch_sim.run_trials_batched);
-    orders of magnitude faster than the serial loop for the 100-world suite.
+    """All worlds advanced in lockstep on one device
+    (batch_sim.run_trials_batched), instead of the serial per-world loop.
     extra_stats: merged into the saved batch_stats (e.g. the realtime-budget
     calibration record); rescue_solver/guidance pass through to
     run_trials_batched.

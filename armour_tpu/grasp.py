@@ -1,7 +1,7 @@
 """Grasp / contact extension: end-effector contact wrench PZs and the
 waiter's-tray contact constraints.
 
-TPU-native equivalent of the reference's Dynamics_sav.cu work-in-progress
+JAX equivalent of the reference's Dynamics_sav.cu work-in-progress
 (f_c_{nom,int} / n_c_{nom,int} contact force/moment PZs at the end effector,
 Dynamics_sav.cu:17-20,891-896; the `grasp_constraints_flag` placeholder in
 uarmtd_planner.m:539-542 never materialized).  Here the wrench PZs come from

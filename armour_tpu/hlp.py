@@ -1,7 +1,7 @@
 """High-level planners (waypoint generators) for the receding-horizon loop.
 
 The reference keeps HLPs on the host as cheap geometric guidance
-(simulator/planners/high_level_planners/); the TPU owns the certified
+(simulator/planners/high_level_planners/); the device owns the certified
 mid-level planner.  Same split here: HLPs are pure numpy, called once per
 0.5 s re-plan, so device dispatch would be pure overhead.
 

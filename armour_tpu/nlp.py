@@ -11,7 +11,7 @@ The problem (NLPclass.cu:46-54): n = F variables k in [-1,1]^F;
 
 With only F=7 variables and a dense cheap-to-evaluate constraint set, a
 fixed-iteration augmented-Lagrangian method with a projected Gauss-Newton
-inner loop maps perfectly onto TPU: every constraint row is a polynomial
+inner loop maps well onto one jitted program: every constraint row is a polynomial
 evaluation, the KKT system is FxF, and the whole solve is one jitted
 lax.fori_loop — batched over worlds with vmap/shard_map.
 

@@ -1,12 +1,13 @@
 """Scale-out: shard batched planning over a device mesh.
 
 The reference is a single-process single-robot system (SURVEY.md section
-2.3); the TPU scale axis is pure data parallelism over independent planning
+2.3); the scale axis here is pure data parallelism over independent planning
 problems (worlds x initial states x waypoints).  We lay a 1-D 'worlds' mesh
-axis over all devices (ICI within a slice, DCN across hosts via
-jax.distributed), shard every per-world input on that axis, and let each
-device run the fully-fused planning step on its shard — zero collectives in
-the forward path; summary statistics reduce with a single psum.
+axis over the devices, shard every per-world input on that axis, and let
+each device run the fully-fused planning step on its shard — zero
+collectives in the forward path; summary statistics reduce with a single
+psum.  The planning step needs no communication, so the mesh follows the
+algorithm alone: one axis, whatever links join the devices.
 
 For multi-host runs call jax.distributed.initialize() first; the same code
 then spans hosts (the mesh enumerates all global devices).
@@ -79,3 +80,13 @@ def make_sharded_summary(mesh: Mesh, axis: str = "worlds"):
 
 def stack_obstacles(obs_list) -> ObstacleSet:
     return jax.tree.map(lambda *xs: jnp.stack(xs), *obs_list)
+
+
+def run_sharded(devices, robot: RobotModel, cfg: ArmourConfig, args):
+    """One sharded planning step over a 1-D mesh of `devices` on the
+    [W, ...] inputs `args` (W divisible by the device count), plus its psum
+    summary.  Returns (SolveResult, summary dict)."""
+    mesh = make_mesh(devices)
+    out = make_sharded_planner(robot, cfg, mesh)(*args)
+    summary = make_sharded_summary(mesh)(out.feasible, out.cost)
+    return out, jax.block_until_ready(summary)

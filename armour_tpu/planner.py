@@ -6,8 +6,8 @@ PZ FK/RNEA, obstacle hyperplanes and the NLP solve all live in ONE jitted
 function — no host round-trips inside a step (SURVEY.md section 2.3).
 
 make_planner returns a compiled step; make_batch_planner vmaps it over
-worlds, which is the TPU scale axis (thousands of independent planning
-problems per step, sharded over the device mesh in parallel/batch.py).
+worlds, so one device solves many independent planning problems per step
+(parallel/batch.py shards that axis over several devices).
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from .collision import (ObstacleSet, build_hyperplanes, pad_obstacles,
-                        screen_collision)
+from .collision import ObstacleSet, build_hyperplanes, screen_collision
 from .config import ArmourConfig
 from .dynamics import torque_frs
 from .jrs import build_jrs
@@ -29,16 +28,10 @@ from .pz.basis import make_basis
 from .robot import RobotModel
 
 
-def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
-              cfg: ArmourConfig, basis, k0=None) -> SolveResult:
-    """One full planning iteration (armour_main.cu main() equivalent).
-    cfg.traj_family='armtd' routes to the constant-acceleration comparison
-    pipeline (armtd_main.cu equivalent) — same downstream FK/RNEA/collision/
-    NLP, different trajectory family."""
-    if cfg.traj_family == "armtd":
-        from .armtd import plan_step_armtd
-
-        return plan_step_armtd(q0, qd0, q_des, obs, robot, cfg, basis, k0=k0)
+def build_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
+                  cfg: ArmourConfig, basis):
+    """The reachset prefix of a planning step: JRS -> PZ FK/RNEA ->
+    obstacle hyperplanes -> screened rows.  Returns (jrs, PlanProblem)."""
     jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
     links = forward_occupancy(jrs, robot, cfg, basis)
     frs = reduce_links(links, basis)
@@ -67,7 +60,30 @@ def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
         screened=screened,
         grasp=grasp,
     )
+    return jrs, prob
+
+
+def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
+              cfg: ArmourConfig, basis, k0=None) -> SolveResult:
+    """One full planning iteration (armour_main.cu main() equivalent).
+    cfg.traj_family='armtd' routes to the constant-acceleration comparison
+    pipeline (armtd_main.cu equivalent) — same downstream FK/RNEA/collision/
+    NLP, different trajectory family."""
+    if cfg.traj_family == "armtd":
+        from .armtd import plan_step_armtd
+
+        return plan_step_armtd(q0, qd0, q_des, obs, robot, cfg, basis, k0=k0)
+    _, prob = build_problem(q0, qd0, qdd0, q_des, obs, robot, cfg, basis)
     return solve(prob, robot, cfg, basis, k0=k0)
+
+
+def reachset_cost(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
+                  cfg: ArmourConfig, basis):
+    """The reachset prefix alone, reduced to a scalar that consumes the
+    torque bounds and the screened rows (so XLA keeps every stage); timed
+    against the full step to split reachset from solver time."""
+    _, prob = build_problem(q0, qd0, qdd0, q_des, obs, robot, cfg, basis)
+    return prob.torque.torque_radius.sum() + prob.screened.d.sum()
 
 
 def make_planner(robot: RobotModel, cfg: ArmourConfig):
@@ -119,7 +135,7 @@ def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig,
     """Budget-respecting planner (armour_main.cu:227-229 semantics).
 
     The reference allocates the solver `0.5*DURATION - t_reachsets - 0.05` s
-    of wall time per solve and lets Ipopt stop on the clock.  A jitted TPU
+    of wall time per solve and lets Ipopt stop on the clock.  A jitted device
     program cannot watch the clock, so the budget is enforced at COMPILE
     CALIBRATION time instead: measure the reachset prefix, derive the solver
     budget, then lower solver_outer_iters until the measured full step fits
@@ -129,13 +145,10 @@ def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig,
     synthetic two-obstacle scene.
     """
     import dataclasses
-    import time
 
     import numpy as np
 
-    from .dynamics import torque_frs
-    from .jrs import build_jrs
-    from .kinematics import forward_occupancy, reduce_links
+    from .utils.timing import timed
 
     if example_args is None:
         from .collision import pad_obstacles
@@ -149,25 +162,13 @@ def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig,
 
     basis = make_basis(robot.num_factors, cfg.max_poly_degree)
 
-    def timed(fn, iters=5):
-        jax.block_until_ready(fn(*example_args))
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = fn(*example_args)
-        jax.block_until_ready(out)
-        return (time.perf_counter() - t0) / iters
+    def mean_time(fn):
+        return float(np.mean(timed(fn, *example_args)[0]))
 
-    @jax.jit
-    def reachsets_only(q0, qd0, qdd0, q_des, obs):
-        jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
-        frs = reduce_links(forward_occupancy(jrs, robot, cfg, basis), basis)
-        tq = torque_frs(jrs, robot, cfg, basis)
-        hyp = build_hyperplanes(frs, obs)
-        sc = screen_collision(hyp, obs, frs, cfg.screen_k,
-                              cfg.screen_obstacle_quota)
-        return tq.torque_radius.sum() + sc.d.sum()
+    reachsets_only = jax.jit(functools.partial(
+        reachset_cost, robot=robot, cfg=cfg, basis=basis))
 
-    t_rs = timed(reachsets_only)
+    t_rs = mean_time(reachsets_only)
     budget = 0.5 * cfg.duration - t_rs - time_buffer
     deadline = t_rs + budget
 
@@ -178,7 +179,7 @@ def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig,
                                     solver_cull_after=min(
                                         cfg.solver_cull_after, max(outer - 1, 0)))
         step_i = make_planner(robot, cfg_i)
-        dt = timed(step_i)
+        dt = mean_time(step_i)
         if verbose:
             print(f"realtime calibration: outer={outer} step={dt * 1e3:.1f} ms "
                   f"(deadline {deadline * 1e3:.1f} ms)")

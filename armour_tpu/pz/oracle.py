@@ -3,7 +3,7 @@
 A slow, exact re-implementation of the reference's PZsparse semantics
 (PZsparse.h/.cu) used ONLY in tests: monomials over named variables held in a
 dict, full symbolic tracking of every variable group (k, qde, qdae, qddae,
-cosqe, sinqe, link-shape), optional SIMPLIFY_THRESHOLD pruning.  The TPU BPZ
+cosqe, sinqe, link-shape), optional SIMPLIFY_THRESHOLD pruning.  The dense BPZ
 pipeline is validated against this oracle: k-poly coefficients must match to
 float tolerance and BPZ radii must be >= oracle radii (conservatism) while
 staying close (tightness).

@@ -1,6 +1,6 @@
 """ctypes bindings for the native real-time runtime (native/armour_rt.cpp).
 
-The TPU owns the planning pipeline; this module is the host-side deployment
+The device owns the planning pipeline; this module is the host-side deployment
 path: a microsecond-latency robust CBF controller and plant rollout in C++,
 the framework's equivalent of the reference's mex controller
 (kinova_robust_controllers_mex/src/kinova_controller.cpp:19-40).  The shared

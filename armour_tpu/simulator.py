@@ -1,7 +1,7 @@
 """Closed-loop simulation: plant dynamics, tracking rollout, safety oracles,
 and the receding-horizon driver.
 
-TPU-native equivalent of uarmtd_agent.m (plant + ode15s integration),
+JAX equivalent of uarmtd_agent.m (plant + ode15s integration),
 simulator_armtd.m (loop + safety checks) and kinova_world_static.m collision
 checking:
 
@@ -324,8 +324,7 @@ def run_trial(
     oracles = oracles if oracles is not None else make_oracles(robot, cfg)
     # warm-up compile outside the timed loop (see batch_sim) — including the
     # rescue profile, whose first in-loop invocation would otherwise charge
-    # its full jit compile to that iteration's planning time (the round-4
-    # results_hard.json 42-s artifact)
+    # its full jit compile to that iteration's planning time
     _q0w = jnp.asarray(world.start, cfg.dtype)
     _zw = jnp.zeros_like(_q0w)
     jax.block_until_ready(

@@ -9,11 +9,14 @@ scene generator of kinova_create_random_worlds.m / kinova_world_static.m.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from .robot import RobotModel
+
+SAVED_WORLDS = Path(__file__).resolve().parents[1] / "saved_worlds"
 
 
 @dataclasses.dataclass
@@ -215,3 +218,46 @@ def straight_line_waypoint(q: np.ndarray, goal: np.ndarray, lookahead: float = 0
     if dist <= lookahead:
         return q + d
     return q + d * (lookahead / dist)
+
+
+def saved_world_paths(suite: str = "random") -> List[str]:
+    """Sorted scene files of saved_worlds/<suite> ('random': 100 scenes,
+    10 each at 13, 16, ..., 40 obstacles; 'reference': the reference's own
+    100 scenes)."""
+    paths = sorted(str(p) for p in (SAVED_WORLDS / suite).glob("*.csv"))
+    if not paths:
+        raise FileNotFoundError(f"no saved worlds under {SAVED_WORLDS / suite}")
+    return paths
+
+
+def planning_instances(robot: RobotModel, cfg, batch: int):
+    """Inputs of `batch` planning steps on the saved random scenes:
+    (q0, qd0, qdd0, q_des, obs), each with a leading [batch] axis and the
+    obstacles padded to cfg.max_obstacles.
+
+    The arm starts at rest at the scene's start; the waypoint comes from the
+    end-effector RRT* HLP (lookahead 0.1, kinova_run_100_worlds.m settings)
+    seeded by the row index.  Row i takes scene 13*i mod 100, so the first
+    8 rows span 13 to 40 obstacles and the first 100 rows are distinct."""
+    import jax
+    import jax.numpy as jnp
+
+    from .collision import pad_obstacles
+    from .hlp import EndEffectorRRTStarHLP
+
+    paths = saved_world_paths("random")
+    worlds = [load_world_csv(paths[(13 * i) % len(paths)]) for i in range(batch)]
+    q0 = np.stack([w.start for w in worlds])
+    wps = np.stack([
+        EndEffectorRRTStarHLP(w, robot, lookahead=0.1, seed=i)
+        .get_waypoint(w.start)
+        for i, w in enumerate(worlds)
+    ])
+    obs = jax.tree.map(
+        lambda *xs: jnp.stack(xs),
+        *[pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                        cfg.max_obstacles, cfg.dtype) for w in worlds],
+    )
+    zeros = jnp.zeros(q0.shape, cfg.dtype)
+    return (jnp.asarray(q0, cfg.dtype), zeros, zeros,
+            jnp.asarray(wps, cfg.dtype), obs)

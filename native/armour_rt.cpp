@@ -1,10 +1,10 @@
-// armour_rt: native real-time runtime for the ARMOUR-class TPU framework.
+// armour_rt: native real-time runtime for the ARMOUR-class framework.
 //
-// The TPU executes the planning pipeline (JRS -> PZ FK/RNEA -> constraints ->
+// The device executes the planning pipeline (JRS -> PZ FK/RNEA -> constraints ->
 // NLP) as one jitted program; this library is the HOST side of the runtime:
 // the 1 kHz robust CBF tracking controller and plant rollout that must run
 // with microsecond latency next to the robot, where a device round-trip per
-// control tick is not acceptable.  It is the TPU-native equivalent of the
+// control tick is not acceptable.  It is the native equivalent of the
 // reference's mex controller stack (kinova_robust_controllers_mex/src/
 // robust_controller.cpp:129-167, rnea.cpp:6-99) — same math as
 // armour_tpu/controller.py and armour_tpu/rnea_numeric.py, cross-checked by

@@ -2,7 +2,7 @@
 
 Usage: python scripts/classify_stuck.py results_worlds.json saved_worlds/random
 
-Pure-geometry offline oracle (no TPU, no planner under test): see
+Pure-geometry offline oracle (no device, no planner under test): see
 armour_tpu/solvability.py for the verdict classes.
 """
 

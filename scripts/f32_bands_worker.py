@@ -1,15 +1,17 @@
-"""Worker: compute f32 reachable-set bands for containment validation.
+"""Worker: float32 reachable-set bands for the containment check, on the CPU.
 
-Runs with JAX_ENABLE_X64 unset (genuine float32, as on TPU) and CPU backend.
-Loads sampled (t_ind, k) pairs from an input .npz, builds the f32 pipeline
-(JRS -> FK -> RNEA) at a given float_slop, slices every PZ at the samples and
-writes the (center, radius) bands to an output .npz.  The f64 ground-truth
-check happens in the calling process (tests/test_f32_soundness.py) or in
-scripts/measure_f32_slop.py.
+Runs with x64 off (genuine float32, as on the GPU path) on the CPU backend.
+Loads sampled (t_ind, k) pairs from an input .npz, builds the f32 bands
+(crosscheck.f32_bands: JRS -> FK -> RNEA, sliced at the samples) at a given
+float_slop and writes (center, radius) per group to an output .npz.
+tests/test_f32_soundness.py checks float64 ground truth against them;
+chip_smoke.py runs the same bands on the GPU.
 
 This is the validation SURVEY.md section 7 hard part (2) calls for: interval
 arithmetic without directed rounding is only sound with an outward slop
 budget, and that budget must be measured, not guessed.
+
+Usage: python scripts/f32_bands_worker.py IN.npz OUT.npz FLOAT_SLOP
 """
 
 import os
@@ -20,65 +22,31 @@ os.environ.pop("JAX_ENABLE_X64", None)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
 def main():
     in_path, out_path, slop = sys.argv[1], sys.argv[2], float(sys.argv[3])
     data = np.load(in_path)
-    q0, qd0, qdd0 = data["q0"], data["qd0"], data["qdd0"]
-    t_inds = data["t_inds"].astype(np.int32)   # [S]
-    ks = data["ks"]                            # [S, F]
-    num_time_steps = int(data["num_time_steps"])
 
-    from armour_tpu import dynamics, kinematics
     from armour_tpu.config import ArmourConfig
-    from armour_tpu.jrs import build_jrs
+    from armour_tpu.crosscheck import f32_bands
     from armour_tpu.models.kinova import kinova_gen3
-    from armour_tpu.pz import basis as basis_mod
-    from armour_tpu.pz import bpz
+    from armour_tpu.pz.basis import make_basis
 
     robot = kinova_gen3()
-    cfg = ArmourConfig(num_time_steps=num_time_steps, dtype=jnp.float32,
-                       float_slop=slop)
-    basis = basis_mod.make_basis(robot.num_factors, cfg.max_poly_degree)
-
-    import jax
-
-    @jax.jit
-    def build(q0, qd0, qdd0):
-        jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
-        links = kinematics.forward_occupancy(jrs, robot, cfg, basis)
-        frs = kinematics.reduce_links(links, basis)
-        u_nom = dynamics.rnea_pz(jrs, robot, cfg, basis, uncertain=False)
-        return jrs, frs, u_nom
-
-    jrs, frs, u_nom = build(
-        jnp.asarray(q0, jnp.float32), jnp.asarray(qd0, jnp.float32),
-        jnp.asarray(qdd0, jnp.float32))
-
+    cfg = ArmourConfig(num_time_steps=int(data["num_time_steps"]),
+                       dtype=jnp.float32, float_slop=slop)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    f32 = lambda name: jnp.asarray(data[name], jnp.float32)
+    bands = jax.jit(lambda *a: f32_bands(*a, robot, cfg, basis))(
+        f32("q0"), f32("qd0"), f32("qdd0"),
+        jnp.asarray(data["t_inds"], jnp.int32), f32("ks"))
     out = {}
-    phis = np.stack([np.asarray(basis.phi(jnp.asarray(k, jnp.float32))) for k in ks])
-    for name, arr in (("qd", jrs.qd), ("qdda", jrs.qdda), ("u", u_nom)):
-        cs, rs = [], []
-        for t, phi in zip(t_inds, phis):
-            pz = bpz.BPZ(arr.coef[t], arr.egen[t], arr.rad[t])
-            c, r = bpz.slice_at(pz, jnp.asarray(phi, jnp.float32))
-            cs.append(np.asarray(c))
-            rs.append(np.asarray(r))
-        out[f"{name}_c"] = np.stack(cs)
-        out[f"{name}_r"] = np.stack(rs)
-
-    # link FRS: sliced center + shape/interval hull
-    cs, rs = [], []
-    for t, phi in zip(t_inds, phis):
-        c = np.einsum("jab,b->ja", np.asarray(frs.center_coef[t]), phi)
-        hull = (np.sum(np.abs(np.asarray(frs.shape_gens[t])), axis=-1)
-                + np.asarray(frs.radius[t]))
-        cs.append(c)
-        rs.append(hull)
-    out["fk_c"] = np.stack(cs)
-    out["fk_r"] = np.stack(rs)
+    for name, (c, r) in bands.items():
+        out[f"{name}_c"] = np.asarray(c)
+        out[f"{name}_r"] = np.asarray(r)
     np.savez(out_path, **out)
 
 

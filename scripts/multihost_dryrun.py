@@ -1,6 +1,6 @@
 """Multi-host dryrun: the sharded planner over a 2-process jax.distributed
 mesh (4+4 virtual CPU devices), validating that the worlds-axis sharding and
-the psum summary compile and execute across a process (DCN) boundary —
+the psum summary compile and execute across a process boundary —
 BASELINE.json's "1 chip / 1 host / >= 2 hosts" axis without real hardware
 (SURVEY.md section 5, distributed backend).
 

@@ -193,8 +193,8 @@ def main():
 def render_gif(out_path, robot, q, q_des, tr, t, start_ee, goal_ee, first,
                max_frames: int = 60, fps: int = 10):
     """Animated replay (the reference's robot_arm_agent plotting/animation
-    layer, robot_arm_agent.m:1146-1210 — MATLAB animates live; headless TPU
-    boxes export a GIF instead).  Pass 'gif' as the 4th CLI arg."""
+    layer, robot_arm_agent.m:1146-1210 — MATLAB animates live; headless
+    hosts export a GIF instead).  Pass 'gif' as the 4th CLI arg."""
     from matplotlib import animation
 
     sel = np.linspace(0, len(t) - 1, min(max_frames, len(t))).astype(int)

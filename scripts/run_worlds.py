@@ -2,7 +2,7 @@
 
 Usage: python scripts/run_worlds.py [world_dir] [n_worlds] [results.json] [mode]
 
-Default mode runs every world in lockstep on one chip
+Default mode runs every world in lockstep on one device
 (batch_sim.run_trials_batched); mode "serial" runs the per-world loop
 (identical outcomes, much slower); mode "budget" first calibrates the
 solver iteration budget to the measured reachset time at batch 1
@@ -53,9 +53,9 @@ def main():
             paths, robot, cfg, results_path=out,
             extra_stats={"budget_calibration": calib, "budget_mode": True})
     else:
-        # acceptance configuration (measured round 5): config-RRT*-first
-        # guidance for blocked worlds, no rescue solver (net -3 goals on
-        # cluttered scenes at 2x wall cost; see results_worlds*.json)
+        # acceptance configuration: config-RRT*-first guidance for blocked
+        # worlds, no rescue solver (the rescue profile cost 3 goals net on
+        # the cluttered scenes)
         results = run_world_suite_batched(paths, robot, cfg, results_path=out,
                                           rescue_solver=False, guidance="auto")
     print(json.dumps(summarize(results), indent=1))

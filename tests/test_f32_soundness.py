@@ -1,10 +1,10 @@
 """f32 containment soundness (SURVEY.md section 7 hard part (2)).
 
-The TPU path runs the reachability pipeline in float32 without directed
+The device path runs the reachability pipeline in float32 without directed
 rounding; soundness relies on the outward `float_slop` budget added to the
 independent radius at every bilinear PZ op.  This test builds the f32 bands
-in a genuine-f32 subprocess (x64 off, as on TPU) at the DEFAULT config slop
-and verifies float64 ground-truth samples stay inside them.
+in a genuine-f32 subprocess (x64 off, as on the GPU) at the DEFAULT config
+slop and verifies float64 ground-truth samples stay inside them.
 """
 
 import os
@@ -12,38 +12,31 @@ import subprocess
 import sys
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
-from armour_tpu import bezier, rnea_numeric
+from armour_tpu import crosscheck
 from armour_tpu.config import ArmourConfig
 from armour_tpu.models.kinova import kinova_gen3
 
 ROBOT = kinova_gen3()
 N_T = 16
 # 32 samples keep the subprocess well under its wall cap even when the full
-# suite loads every core (round-2 flake: 64 samples + 900 s cap ERRORed
-# under load); containment is a per-sample property, so fewer samples only
-# reduce statistical coverage, not soundness of what is checked.
+# suite loads every core; containment is a per-sample property, so fewer
+# samples only reduce statistical coverage, not soundness of what is checked.
 N_SAMPLES = 32
-
-Q0 = np.array([0.6543, -0.0876, -0.4837, -1.2278, -1.5735, -1.0720, 0.0])
-QD0 = np.array([0.1, -0.2, 0.15, 0.3, -0.1, 0.05, 0.2])
-QDD0 = np.array([0.3, 0.1, -0.2, 0.1, 0.2, -0.1, 0.0])
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
 def f32_bands(tmp_path_factory):
-    rng = np.random.default_rng(7)
-    t_inds = rng.integers(0, N_T, N_SAMPLES)
-    ks = rng.uniform(-1, 1, (N_SAMPLES, 7))
+    cfg = ArmourConfig(num_time_steps=N_T)
+    samples = crosscheck.band_samples(cfg, N_SAMPLES)
     tmp = tmp_path_factory.mktemp("f32")
     in_path, out_path = str(tmp / "in.npz"), str(tmp / "out.npz")
-    np.savez(in_path, q0=Q0, qd0=QD0, qdd0=QDD0, t_inds=t_inds, ks=ks,
-             num_time_steps=N_T)
-    cfg = ArmourConfig()
+    np.savez(in_path, q0=crosscheck.BAND_Q0, qd0=crosscheck.BAND_QD0,
+             qdd0=crosscheck.BAND_QDD0, t_inds=samples["t_inds"],
+             ks=samples["ks"], num_time_steps=N_T)
     env = dict(os.environ)
     env.pop("JAX_ENABLE_X64", None)
     env["JAX_PLATFORMS"] = "cpu"
@@ -52,43 +45,23 @@ def f32_bands(tmp_path_factory):
          in_path, out_path, str(cfg.float_slop)],
         check=True, env=env, cwd=REPO, timeout=1800,
     )
-    return t_inds, ks, dict(np.load(out_path))
-
-
-def _truth(t_ind, k, rng):
-    cfg = ArmourConfig(num_time_steps=N_T, dtype=jnp.float64)
-    ds = 1.0 / N_T
-    s = rng.uniform(t_ind * ds, (t_ind + 1) * ds)
-    k_act = k * np.asarray(cfg.k_range)
-    Tqd0 = QD0 * cfg.duration
-    TTqdd0 = QDD0 * cfg.duration**2
-    q = np.asarray(bezier.q_des(Q0, Tqd0, TTqdd0, k_act, s))
-    qd = np.asarray(bezier.qd_des(Q0, Tqd0, TTqdd0, k_act, s)) / cfg.duration
-    qdd = np.asarray(bezier.qdd_des(Q0, Tqd0, TTqdd0, k_act, s)) / cfg.duration**2
-    return q, qd, qdd
+    out = np.load(out_path)
+    bands = {g: (out[f"{g}_c"], out[f"{g}_r"]) for g in crosscheck.BAND_GROUPS}
+    return cfg, samples, bands
 
 
 def test_default_float_slop_is_on():
     """Round-1 shipped float_slop=0.0 — the f32 outward-rounding budget must
-    be enabled by default for the TPU path to be sound."""
+    be enabled by default for the f32 device path to be sound."""
     assert ArmourConfig().float_slop > 0.0
 
 
 @pytest.mark.slow
 def test_f32_containment_of_f64_truth(f32_bands):
-    t_inds, ks, bands = f32_bands
-    rng = np.random.default_rng(8)
-    worst = {"qd": 0.0, "qdda": 0.0, "u": 0.0, "fk": 0.0}
-    for i, (t_ind, k) in enumerate(zip(t_inds, ks)):
-        q, qd, qdd = _truth(int(t_ind), k, rng)
-        tau = np.asarray(rnea_numeric.rnea(
-            ROBOT, jnp.asarray(q), jnp.asarray(qd), jnp.asarray(qd),
-            jnp.asarray(qdd)))
-        _, _, centers = rnea_numeric.forward_kinematics(ROBOT, jnp.asarray(q))
-        for name, truth in (("qd", qd), ("qdda", qdd), ("u", tau),
-                            ("fk", np.asarray(centers))):
-            c, r = bands[f"{name}_c"][i], bands[f"{name}_r"][i]
-            viol = np.max(np.abs(truth - c) - r)
-            worst[name] = max(worst[name], float(viol))
+    cfg, samples, bands = f32_bands
+    truth = crosscheck.f64_truth(
+        crosscheck.BAND_Q0, crosscheck.BAND_QD0, crosscheck.BAND_QDD0,
+        samples["t_inds"], samples["ks"], samples["s_frac"], ROBOT, cfg)
+    worst = crosscheck.containment_margins(bands, truth)
     assert all(v <= 0.0 for v in worst.values()), (
         f"f32 bands must contain f64 truth with the default slop: {worst}")
